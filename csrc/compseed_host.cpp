@@ -1,6 +1,6 @@
-// Native host runtime for compseed_tpu: the post-SAL alignment tail.
+// Native host runtime for compseed: the post-SAL alignment tail.
 //
-// The TPU owns the FM-index queries and the banded-SW extension DP; this
+// The device owns the FM-index queries and the banded-SW extension DP; this
 // library owns the irregular host-side logic around them (the role
 // mapping/comp_seed.cpp's tail plays in the reference):
 //
@@ -15,7 +15,7 @@
 // byte-level contract is enforced by the differential test-suite against
 // the reference binaries and the Python oracle.
 //
-// Exposed as a C ABI consumed via ctypes (compseed_tpu/native).
+// Exposed as a C ABI consumed via ctypes (compseed/native).
 //
 // Build: g++ -O2 -fPIC -shared -o libcompseed_host.so compseed_host.cpp
 

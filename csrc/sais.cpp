@@ -6,7 +6,7 @@
 // (FM_index/is.c SA-IS <=50 Mbp, bwt_gen.c BWT-SW incremental, rope.c
 // RB2): one algorithm, linear time, covering every genome size the host
 // memory allows.  Differentially tested against the numpy
-// prefix-doubling builder (compseed_tpu/index/suffix.py).
+// prefix-doubling builder (compseed/index/suffix.py).
 
 #include <cstdint>
 #include <cstring>

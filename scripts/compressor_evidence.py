@@ -3,7 +3,7 @@
 The reference's input contract is a read stream reordered by a
 reference-free NGS compressor (SPRING/Minicom/PgRC, main.cpp:36-58).
 No compressor is installable here (zero egress), so this run uses the
-framework's OWN reference-free reorder stage (compseed_tpu.io.reorder,
+framework's OWN reference-free reorder stage (compseed.io.reorder,
 the same minimizer-anchor clustering signal SPRING's reorder stage
 uses) on 1M reads drawn in RANDOM sequencing order, then feeds the
 identical reordered stream to BOTH the reference CompSeed binary and
@@ -36,11 +36,11 @@ def main() -> int:
     ap.add_argument("--reads", type=int, default=1_000_000)
     ap.add_argument("--coverage", type=float, default=30.0)
     ap.add_argument("--skip-ours", action="store_true",
-                    help="only run the reference binary (no TPU)")
+                    help="only run the reference binary (no device)")
     args = ap.parse_args()
 
     import bench
-    from compseed_tpu.utils import NT4_TO_ASCII
+    from compseed.utils import NT4_TO_ASCII
 
     fm, _ = bench._setup()          # the honest 2 Mbp bench index
     prefix = os.path.join(bench.CACHE,
@@ -53,7 +53,7 @@ def main() -> int:
     fq_ro = os.path.join(work, f"reordered_{args.reads}.fq")
     if not os.path.exists(fq_ro):
         rng = np.random.default_rng(99)
-        from compseed_tpu.index.fmindex import unpack_pac_range
+        from compseed.index.fmindex import unpack_pac_range
         genome = unpack_pac_range(fm.pac, 0, fm.l_pac)
         span = int(args.reads * READ_LEN / args.coverage)
         span = min(span, len(genome) - READ_LEN - 8)
@@ -80,7 +80,7 @@ def main() -> int:
         # truncated stream that a later run trusts.
         t0 = time.time()
         tmp_ro = fq_ro + ".tmp"
-        subprocess.run([sys.executable, "-m", "compseed_tpu.cli",
+        subprocess.run([sys.executable, "-m", "compseed.cli",
                         "reorder", fq_raw, "-o", tmp_ro],
                        check=True, cwd=ROOT,
                        env={**os.environ, "JAX_PLATFORMS": "cpu"})
@@ -121,7 +121,7 @@ def main() -> int:
                "COMPSEED_MEM_F": "16", "COMPSEED_SEED_F": "16",
                "COMPSEED_U_F": "12"}
         p = subprocess.run(
-            [sys.executable, "-m", "compseed_tpu.cli", "mem",
+            [sys.executable, "-m", "compseed.cli", "mem",
              "-v", "3", "-K", str(16384 * READ_LEN), "-o", out_sam,
              prefix, fq_ro],
             capture_output=True, text=True, cwd=ROOT, env=env)

@@ -88,15 +88,15 @@ def main() -> int:
                           "error": "index missing; run hg19_scale.py"}))
         return 1
 
-    from compseed_tpu.index.fmindex import FMIndex, unpack_pac_range
-    from compseed_tpu.io.fastq import Read
-    from compseed_tpu.options import MemOptions
-    from compseed_tpu.ops.device_index import to_device
-    from compseed_tpu.ops.engine import device_engine
-    from compseed_tpu.ops.seeder2 import DeviceSeeder
-    from compseed_tpu.pipeline.align import align_stream
-    from compseed_tpu.pipeline.seeding import SeedingStats
-    from compseed_tpu.utils import NT4_TO_ASCII
+    from compseed.index.fmindex import FMIndex, unpack_pac_range
+    from compseed.io.fastq import Read
+    from compseed.options import MemOptions
+    from compseed.ops.device_index import to_device
+    from compseed.ops.engine import device_engine
+    from compseed.ops.seeder2 import DeviceSeeder
+    from compseed.pipeline.align import align_stream
+    from compseed.pipeline.seeding import SeedingStats
+    from compseed.utils import NT4_TO_ASCII
 
     t0 = time.time()
     fm = FMIndex.load(prefix)
@@ -126,7 +126,7 @@ def main() -> int:
     print(f"[hg19] device index: {hbm_gb:.2f} GB HBM, "
           f"H2D {t_h2d:.0f} s", file=sys.stderr)
     if args.sa_intv and args.sa_intv < fm.sa_intv:
-        from compseed_tpu.ops.device_index import densify_sa
+        from compseed.ops.device_index import densify_sa
         t0 = time.time()
         dfi = densify_sa(dfi, args.sa_intv)
         dfi.sa_sampled.block_until_ready()
@@ -141,7 +141,7 @@ def main() -> int:
     opt = MemOptions()
     seeder = DeviceSeeder(opt, fm, dfi=dfi, dedup=True)
     engine = device_engine(opt, fm, dfi=dfi)
-    from compseed_tpu.native import NativeTail
+    from compseed.native import NativeTail
     tail = NativeTail(opt, fm)
 
     def mk_reads(arr, start):

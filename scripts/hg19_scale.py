@@ -17,8 +17,8 @@ Measured 2026-08-17 (this host: 1 CPU core, 125 GB RAM):
   3,100 Mbp (24 chromosomes, 6.2 G suffix positions) built in 5,888 s
   + 194 s write, peak RSS 79.7 GB; outputs .bwt 3.10 GB, .sa 1.55 GB,
   .pac 0.77 GB.  (The reference builds hg19 in ~10 GB RAM but needs
-  hours of incremental BWT-SW; ours trades RAM — abundant on TPU
-  hosts — for one linear-time pass.)
+  hours of incremental BWT-SW; ours trades RAM for one linear-time
+  pass.)
 """
 
 from __future__ import annotations
@@ -38,7 +38,7 @@ REF = os.path.join(ROOT, ".ref_build")
 
 
 def write_genome(path: str, n_mbp: int) -> None:
-    from compseed_tpu.utils import NT4_TO_ASCII
+    from compseed.utils import NT4_TO_ASCII
 
     rng = np.random.default_rng(1000)
     n_chrom = 24
@@ -89,8 +89,8 @@ def main() -> int:
         print(f"[hg19_scale] genome: {args.mbp} Mbp in "
               f"{time.time() - t0:.0f} s", flush=True)
 
-    from compseed_tpu.index.build import build_index, build_index_blocked
-    from compseed_tpu.index.io import save_index
+    from compseed.index.build import build_index, build_index_blocked
+    from compseed.index.io import save_index
 
     t0 = time.time()
     if args.blocked:

@@ -1,9 +1,8 @@
-"""Paired-end on-chip bench + full parity vs the reference bwamem.
+"""Paired-end device bench + full parity vs the reference bwamem.
 
-VERDICT r4 ask #7: the PE path (insert-size inference, mate rescue,
-pair scoring, PE SAM — compseed_host.cpp pestat/matesw/mem_pair_eq/
-sam_pe, mirroring mapping/bwamem_pair.c) had byte-exact goldens on the
-CPU mesh but no on-TPU bench.  This streams simulated proper pairs
+The PE path (insert-size inference, mate rescue, pair scoring, PE SAM —
+compseed_host.cpp pestat/matesw/mem_pair_eq/sam_pe, mirroring
+mapping/bwamem_pair.c) has byte-exact goldens on the CPU; this streams simulated proper pairs
 through the PRODUCTION device pipeline (device seeder + fused dual
 BSW + native PE tail) and byte-compares every record against
 `bwamem r1.fq r2.fq` on the same index — the reference's own PE mode
@@ -11,7 +10,7 @@ BSW + native PE tail) and byte-compares every record against
 binary DECLARES PE unsupported (main.cpp:331-335); this framework
 carries the compressive path into PE, so the oracle is bwamem.
 
-Run (TPU): python scripts/pe_bench.py [--pairs 16384] [--runs 3]
+Run (GPU): python scripts/pe_bench.py [--pairs 16384] [--runs 3]
 Emits one BENCH-style JSON line.
 """
 from __future__ import annotations
@@ -83,14 +82,14 @@ def main() -> int:
     args = ap.parse_args()
 
     import bench
-    from compseed_tpu.io.fastq import Read
-    from compseed_tpu.options import MEM_F_PE, MemOptions
-    from compseed_tpu.native import NativeTail
-    from compseed_tpu.ops.engine import device_engine, device_seeder
-    from compseed_tpu.pipeline.align import align_stream
-    from compseed_tpu.pipeline.seeding import SeedingStats
-    from compseed_tpu.index.fmindex import unpack_pac_range
-    from compseed_tpu.utils import NT4_TO_ASCII
+    from compseed.io.fastq import Read
+    from compseed.options import MEM_F_PE, MemOptions
+    from compseed.native import NativeTail
+    from compseed.ops.engine import device_engine, device_seeder
+    from compseed.pipeline.align import align_stream
+    from compseed.pipeline.seeding import SeedingStats
+    from compseed.index.fmindex import unpack_pac_range
+    from compseed.utils import NT4_TO_ASCII
 
     fm, _ = bench._setup()
     genome = unpack_pac_range(fm.pac, 0, fm.l_pac)

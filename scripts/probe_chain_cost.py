@@ -37,10 +37,10 @@ def main():
     import bench
     import jax
     import jax.numpy as jnp
-    from compseed_tpu.options import MemOptions
-    from compseed_tpu.ops import seedscan as ss
-    from compseed_tpu.ops.engine import device_seeder
-    from compseed_tpu.ops.seeder2 import _bucket, _round_up
+    from compseed.options import MemOptions
+    from compseed.ops import seedscan as ss
+    from compseed.ops.engine import device_seeder
+    from compseed.ops.seeder2 import _bucket, _round_up
 
     CHUNK = int(sys.argv[1]) if len(sys.argv) > 1 else 16384
     fm, reads_arr = bench._setup()

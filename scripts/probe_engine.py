@@ -1,12 +1,20 @@
-"""Queue-N decomposition of the DP engine's device cost at bench
-shapes: full bsw_meta_dual vs tile build alone vs DP alone — names the
-dominant term of the ~0.7-0.9 s/chunk engine bucket (seeding's twin
-probe is profile_phases).
+"""Device time of the banded-SW DP alone: the GPU kernel
+(ops/bsw_triton.py) against the XLA program (_extend_core), both band
+rounds and the acceptance test, on the same extension pairs.
 
-Run on the TPU: python scripts/probe_engine.py [P] [T]
+Pairs are what run_meta_dual hands the DP for 101 bp reads (query class
+Q=128, targets up to T=256) and for 2x150 bp reads (Q=256, T=512): each
+query is the copy of its target's start with ~1% substitutions and an
+occasional short indel, sorted by target length as the runner sorts
+them.  Every timing ends in block_until_ready; the two paths must agree
+exactly.
+
+Run on the GPU: python scripts/probe_engine.py [P]
+The last line of stdout is the whole record as JSON.
 """
 from __future__ import annotations
 
+import json
 import os
 import sys
 import time
@@ -16,96 +24,101 @@ sys.path.insert(0, ROOT)
 
 import numpy as np
 
-SYNC_S = 0.034
+
+def make_pairs(rng, P: int, Q: int, T: int, qmin: int, qmax: int, opt,
+               max_sc: int = 1):
+    """P extension pairs in one query class, sorted by target length, in
+    the argument order of bsw.dual_dp: qt (P, Q) int8, qlen, tt (P, T)
+    int8, tlen, h0, prev, band round 0, band round 1 ((P,) int32)."""
+    from compseed.ops.tiles import clamp_band
+    qlen = rng.integers(qmin, qmax + 1, P).astype(np.int32)
+    tlen = np.minimum(qlen + rng.integers(40, 101, P), T).astype(np.int32)
+    tlen = np.sort(tlen)
+    rng.shuffle(qlen)
+    qlen = np.minimum(qlen, tlen)
+    tt = rng.integers(0, 4, (P, T)).astype(np.int8)
+    tt[np.arange(T)[None, :] >= tlen[:, None]] = 4
+    qt = np.full((P, Q), 4, np.int8)
+    for i in range(P):
+        q = tt[i, :qlen[i]].copy()
+        sub = rng.random(qlen[i]) < 0.01
+        q[sub] = rng.integers(0, 4, int(sub.sum()))
+        if rng.random() < 0.05 and qlen[i] > 20:      # a 1-3 bp deletion
+            j = int(rng.integers(5, qlen[i] - 5))
+            n = int(rng.integers(1, 4))
+            q = np.concatenate([q[:j], q[j + n:], tt[i, qlen[i]:qlen[i] + n]])
+            q = np.where(q > 3, 0, q)[:qlen[i]]
+        qt[i, :len(q)] = q
+    h0 = rng.integers(19, 61, P).astype(np.int32)
+    prev = np.full(P, -1, np.int32)
+    ws = [clamp_band(qlen, w, max_sc, opt.pen_clip5, opt.o_del, opt.e_del,
+                     opt.o_ins, opt.e_ins) for w in (opt.w, 2 * opt.w)]
+    return qt, qlen, tt, tlen, h0, prev, ws[0], ws[1]
 
 
-def qtime(label, f, n=8, reps=3):
+def dual_dp_fn(opt, mat, kernel: bool):
     import jax
+    from compseed.ops.bsw import dual_dp
+    from compseed.ops.bsw_triton import mat_key
+    return jax.jit(lambda *a: dual_dp(
+        mat_key(mat), *a, o_del=opt.o_del, e_del=opt.e_del,
+        o_ins=opt.o_ins, e_ins=opt.e_ins, zdrop=opt.zdrop, w0=opt.w,
+        kernel=kernel))
 
-    def sync(out):
-        leaf = jax.tree_util.tree_leaves(out)[0]
-        np.asarray(leaf).ravel()[:1]
 
-    sync(f())
-    best = None
+def timed(f, args, reps: int = 5):
+    """Compile + warm once, then reps synchronous runs: (compile_s,
+    [ms per run])."""
+    import jax
+    t0 = time.perf_counter()
+    jax.block_until_ready(f(*args))
+    first = time.perf_counter() - t0
+    ms = []
     for _ in range(reps):
         t0 = time.perf_counter()
-        r = None
-        for _ in range(n):
-            r = f()
-        sync(r)
-        dt = (time.perf_counter() - t0 - SYNC_S) / n
-        best = dt if best is None else min(best, dt)
-    print(f"{label:34s} {best * 1e3:9.2f} ms", flush=True)
-    return best
+        jax.block_until_ready(f(*args))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return first, ms
 
 
 def main():
-    import bench
     import jax
     import jax.numpy as jnp
 
-    from compseed_tpu.options import MemOptions, fill_scmat
-    from compseed_tpu.ops.bsw_pallas import (build_tiles, build_tiles_ref,
-                                             _call_kernel)
-    from compseed_tpu.ops.bsw import pallas_available
-    from compseed_tpu.ops.device_index import to_device
-
+    from compseed.device import card_line, require_gpu
+    from compseed.options import MemOptions
+    require_gpu("probe_engine")
+    card = card_line()
     P = int(sys.argv[1]) if len(sys.argv) > 1 else 65536
-    T = int(sys.argv[2]) if len(sys.argv) > 2 else 256
-    Q, L, R = 128, 128, 16384
-    fm, reads_arr = bench._setup()
-    dfi = to_device(fm)
-    l_pac = int(dfi.l_pac)
     opt = MemOptions()
-    mat = jnp.asarray(np.array(fill_scmat(opt.a, opt.b), np.int32)
-                      .reshape(1, 25))   # _call_kernel mat25 layout
+    mat = np.array(opt.mat, np.int32)
     rng = np.random.default_rng(5)
-    qarr = np.full((R, L), 4, np.uint8)
-    qarr[:, :101] = reads_arr[:R]
-    qflat = jnp.asarray(qarr.reshape(-1))
-
-    qmeta = np.zeros((P, 4), np.int32)
-    qmeta[:, 0] = rng.integers(0, R, P)
-    qmeta[:, 2] = rng.integers(20, 102, P)
-    qmeta[:, 3] = rng.integers(0, 2, P)
-    qmeta[:, 1] = np.where(qmeta[:, 3] == 0,
-                           rng.integers(0, 26, P),
-                           rng.integers(101, 127, P) - 26)
-    rlen = rng.integers(30, 200, P).astype(np.int32)
-    r0 = np.where(qmeta[:, 3] == 0,
-                  rng.integers(0, l_pac - 210, P),
-                  rng.integers(210, l_pac, P)).astype(np.int32)
-    h0 = rng.integers(10, 100, P).astype(np.int32)
-    ws = np.full((P, 1), opt.w, np.int32)
-    qm = jnp.asarray(qmeta)
-    r0j = jnp.asarray(r0)
-    rl = jnp.asarray(rlen)
-    h0j = jnp.asarray(h0[:, None])
-    wsj = jnp.asarray(ws)
-
-    tiles_new = jax.jit(lambda: build_tiles(
-        qflat, dfi.pac_words, qm, r0j, rl, Q=Q, T=T, L=L, l_pac=l_pac))
-    tiles_ref = jax.jit(lambda: build_tiles_ref(
-        qflat, dfi.pac_words, qm, r0j, rl, Q=Q, T=T, L=L, l_pac=l_pac))
-    t_new = qtime(f"build_tiles packed (P={P})", tiles_new)
-    t_ref = qtime(f"build_tiles per-cell (P={P})", tiles_ref)
-
-    use_pallas = pallas_available()
-    print(f"pallas_available: {use_pallas}", flush=True)
-    qt, ql, tt = jax.jit(lambda: build_tiles(
-        qflat, dfi.pac_words, qm, r0j, rl, Q=Q, T=T, L=L,
-        l_pac=l_pac))()
-    qt = jax.block_until_ready(qt)
-
-    if use_pallas:
-        dp = jax.jit(lambda: _call_kernel(
-            mat, qt, ql[:, None].astype(jnp.int32), tt,
-            rl[:, None], h0j, wsj,
-            opt.o_del, opt.e_del, opt.o_ins, opt.e_ins, opt.zdrop))
-        t_dp = qtime(f"pallas DP alone (P={P}, T={T})", dp)
-    print(f"ratio packed/per-cell: {t_new / max(t_ref, 1e-9):.2f}",
-          flush=True)
+    rec = {"card": card, "device_kind": jax.devices()[0].device_kind,
+           "P": P, "classes": []}
+    for Q, T, qmin, qmax in ((128, 256, 1, 101), (256, 512, 129, 250)):
+        host = make_pairs(rng, P, Q, T, qmin, qmax, opt)
+        args = [jnp.asarray(a) for a in host]
+        row = {"Q": Q, "T": T}
+        outs = {}
+        for dp in ("kernel", "xla"):
+            f = dual_dp_fn(opt, mat, dp == "kernel")
+            first, ms = timed(f, args)
+            outs[dp] = np.asarray(f(*args))
+            row[dp] = {"first_call_s": first, "ms": ms,
+                       "median_ms": float(np.median(ms))}
+            print(f"[{card}] DP {dp:6s} P={P} Q={Q} T={T}: first call "
+                  f"{first:.2f} s, runs {[round(x, 3) for x in ms]} ms",
+                  flush=True)
+        row["equal"] = bool(np.array_equal(outs["kernel"], outs["xla"]))
+        row["round1_pairs"] = int(outs["xla"][:, 6].sum())
+        row["speedup"] = row["xla"]["median_ms"] / row["kernel"]["median_ms"]
+        print(f"[{card}] Q={Q}: kernel == XLA: {row['equal']}; "
+              f"{row['round1_pairs']} pairs took round 1; XLA/kernel "
+              f"time {row['speedup']:.2f}x", flush=True)
+        rec["classes"].append(row)
+    print(json.dumps(rec), flush=True)
+    if not all(r["equal"] for r in rec["classes"]):
+        sys.exit(1)
 
 
 if __name__ == "__main__":

@@ -17,13 +17,13 @@ import numpy as np
 
 def main():
     import bench
-    from compseed_tpu.io.fastq import Read
-    from compseed_tpu.options import MemOptions
-    from compseed_tpu.ops.engine import device_engine, device_seeder
-    from compseed_tpu.pipeline.align import align_chunk
-    from compseed_tpu.pipeline.seeding import SeedingStats
-    from compseed_tpu.native import NativeTail
-    from compseed_tpu.utils import NT4_TO_ASCII
+    from compseed.io.fastq import Read
+    from compseed.options import MemOptions
+    from compseed.ops.engine import device_engine, device_seeder
+    from compseed.pipeline.align import align_chunk
+    from compseed.pipeline.seeding import SeedingStats
+    from compseed.native import NativeTail
+    from compseed.utils import NT4_TO_ASCII
 
     CHUNK = int(sys.argv[1]) if len(sys.argv) > 1 else 16384
     fm, reads_arr = bench._setup()

@@ -16,11 +16,11 @@ jax.config.update("jax_platforms", "cpu")
 import numpy as np  # noqa: E402
 
 import bench  # noqa: E402
-from compseed_tpu.options import MemOptions  # noqa: E402
-from compseed_tpu.ops.bsw import BswRunner  # noqa: E402
-from compseed_tpu.pipeline.align import encode_read  # noqa: E402
-from compseed_tpu.native import NativeTail  # noqa: E402
-from compseed_tpu.utils import NT4_TO_ASCII  # noqa: E402
+from compseed.options import MemOptions  # noqa: E402
+from compseed.ops.bsw import BswRunner  # noqa: E402
+from compseed.pipeline.align import encode_read  # noqa: E402
+from compseed.native import NativeTail  # noqa: E402
+from compseed.utils import NT4_TO_ASCII  # noqa: E402
 
 CHUNK = int(sys.argv[1]) if len(sys.argv) > 1 else 16384
 
@@ -42,7 +42,7 @@ def main() -> None:
     seeds = np.load("/tmp/seeds_cpu.npz")
     queries = [encode_read(bytes(NT4_TO_ASCII[reads_arr[i]]).decode())
                for i in range(CHUNK)]
-    eng = RecordingEngine(opt, np.array(opt.mat), use_pallas=False)
+    eng = RecordingEngine(opt, np.array(opt.mat))
     tail = NativeTail(opt, fm)
     sams = tail.run_batch_flat(
         queries, seeds["lrep"][:CHUNK], seeds["sflat"], seeds["soff"],

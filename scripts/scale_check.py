@@ -15,7 +15,7 @@ bwtsw must produce byte-identical .bwt/.sa.
 
 Run:  python scripts/scale_check.py [size_mbp] [n_reads]
       (default 20 Mbp / 20k reads; needs .ref_build/ binaries)
-Verified: 2026-08-16, 20 Mbp, 20,000/20,000 records identical on TPU.
+Verified at 20 Mbp: 20,000/20,000 records identical.
           2026-08-17, 200 Mbp vs bwaidx-bwtsw, index + 20,000 SAM
           records identical (CPU engine).
 """
@@ -39,7 +39,7 @@ REF = os.path.join(ROOT, ".ref_build")
 def make_genome(path: str, n_bases: int, rng) -> None:
     """Random genome with repeat features, written contig by contig so
     peak memory stays ~one contig."""
-    from compseed_tpu.utils import NT4_TO_ASCII
+    from compseed.utils import NT4_TO_ASCII
 
     n_contigs = max(1, n_bases // 60_000_000)
     per = n_bases // n_contigs
@@ -77,8 +77,8 @@ def main() -> int:
     print(f"[scale] genome written: {n_mbp} Mbp at {fa}")
 
     t0 = time.time()
-    from compseed_tpu.index import build_index
-    from compseed_tpu.index.io import save_index
+    from compseed.index import build_index
+    from compseed.index.io import save_index
     save_index(os.path.join(tmp, "mine"), build_index(fa))
     rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
     print(f"[scale] our build: {time.time() - t0:.0f} s, "
@@ -98,7 +98,7 @@ def main() -> int:
 
     # simulated reads drawn chunk-wise from the FASTA (no whole-genome
     # string in memory)
-    from compseed_tpu.index.build import read_fasta
+    from compseed.index.build import read_fasta
     contigs = [s.decode() for _, _, s in read_fasta(fa)]
     comp = str.maketrans("ACGTN", "TGCAN")
     fq = os.path.join(tmp, "reads.fq")
@@ -121,7 +121,7 @@ def main() -> int:
                            os.path.join(tmp, "ref"), fq],
                           check=True, capture_output=True)
     out = os.path.join(tmp, "mine.sam")
-    subprocess.run([sys.executable, "-m", "compseed_tpu.cli", "mem",
+    subprocess.run([sys.executable, "-m", "compseed.cli", "mem",
                     os.path.join(tmp, "mine"), fq,
                     "--engine", "device", "--tail", "native",
                     "-o", out], check=True, cwd=ROOT)

@@ -11,10 +11,10 @@ import os
 
 import pytest
 
-from compseed_tpu.index.fmindex import FMIndex
-from compseed_tpu.io.fastq import read_fastq_chunks, read_fastq_pair_chunks
-from compseed_tpu.options import MemOptions, MEM_F_PE
-from compseed_tpu.pipeline.align import align_chunk
+from compseed.index.fmindex import FMIndex
+from compseed.io.fastq import read_fastq_chunks, read_fastq_pair_chunks
+from compseed.options import MemOptions, MEM_F_PE
+from compseed.pipeline.align import align_chunk
 
 from tests.conftest import FIXTURES
 
@@ -30,7 +30,7 @@ def _golden(name: str) -> list[str]:
 
 
 def _run_se(fm, opt) -> list[str]:
-    from compseed_tpu.native import NativeTail
+    from compseed.native import NativeTail
 
     reads = []
     for chunk in read_fastq_chunks(
@@ -71,7 +71,7 @@ def test_alt_ignore_j(alt_fm):
 
 @pytest.mark.slow
 def test_alt_pe_golden(alt_fm):
-    from compseed_tpu.native import NativeTail
+    from compseed.native import NativeTail
 
     opt = MemOptions()
     opt.flag |= MEM_F_PE

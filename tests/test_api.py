@@ -2,10 +2,10 @@
 
 import numpy as np
 
-from compseed_tpu.api import SmemIterator, align1
-from compseed_tpu.cpu import fm_oracle as fo
-from compseed_tpu.options import MemOptions
-from compseed_tpu.pipeline.align import encode_read
+from compseed.api import SmemIterator, align1
+from compseed.cpu import fm_oracle as fo
+from compseed.options import MemOptions
+from compseed.pipeline.align import encode_read
 
 from tests.test_ops_smem import _fixture_queries
 
@@ -45,7 +45,7 @@ def test_align1(tiny_fm):
     import os
     gold = [l for l in open(os.path.join(FIXTURES, "golden_bwamem.sam"))
             if not l.startswith("@")]
-    from compseed_tpu.io.fastq import read_fastq_chunks
+    from compseed.io.fastq import read_fastq_chunks
     reads = []
     for chunk in read_fastq_chunks(os.path.join(FIXTURES, "reads.fq"),
                                    10_000_000):

@@ -13,9 +13,9 @@ import os
 import numpy as np
 import pytest
 
-from compseed_tpu.index.build import (build_index, build_index_blocked,
+from compseed.index.build import (build_index, build_index_blocked,
                                       pack_pac, unpack_pac)
-from compseed_tpu.utils import NT4_TO_ASCII
+from compseed.utils import NT4_TO_ASCII
 
 
 def _write_fa(path, parts):

@@ -12,7 +12,7 @@ from tests.conftest import FIXTURES
 
 
 def _mem(argv, env):
-    from compseed_tpu import cli
+    from compseed import cli
     old = {k: os.environ.get(k) for k in env}
     os.environ.update(env)
     try:

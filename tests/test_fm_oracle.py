@@ -2,8 +2,8 @@
 
 import numpy as np
 
-from compseed_tpu.cpu import fm_oracle as fo
-from compseed_tpu.index.suffix import suffix_array
+from compseed.cpu import fm_oracle as fo
+from compseed.index.suffix import suffix_array
 
 
 def _bwt_string(built):

@@ -5,10 +5,10 @@ import os
 import numpy as np
 import pytest
 
-from compseed_tpu.index.build import build_index, pack_pac, unpack_pac
-from compseed_tpu.index.fmindex import FMIndex, unpack_pac_range
-from compseed_tpu.index.io import save_index
-from compseed_tpu.index.suffix import suffix_array
+from compseed.index.build import build_index, pack_pac, unpack_pac
+from compseed.index.fmindex import FMIndex, unpack_pac_range
+from compseed.index.io import save_index
+from compseed.index.suffix import suffix_array
 
 from tests.conftest import FIXTURES
 
@@ -80,8 +80,8 @@ def test_native_sais_matches_numpy():
     """csrc/sais.cpp vs the numpy prefix-doubling builder, including
     repeat-heavy adversarial strings."""
     import numpy as np
-    from compseed_tpu.index.suffix import suffix_array
-    from compseed_tpu.native import suffix_array_native
+    from compseed.index.suffix import suffix_array
+    from compseed.native import suffix_array_native
 
     rng = np.random.default_rng(11)
     cases = [rng.integers(0, 4, n).astype(np.uint8)

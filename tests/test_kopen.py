@@ -6,8 +6,8 @@ import threading
 
 import pytest
 
-from compseed_tpu.io.fastq import read_fastq_chunks
-from compseed_tpu.io.kopen import _needs_shell, kopen_text
+from compseed.io.fastq import read_fastq_chunks
+from compseed.io.kopen import _needs_shell, kopen_text
 
 FIX = os.path.join(os.path.dirname(__file__), "fixtures")
 FQ = os.path.join(FIX, "reads.fq")

@@ -2,8 +2,8 @@
 
 import numpy as np
 
-from compseed_tpu.cpu import ksw
-from compseed_tpu.options import fill_scmat
+from compseed.cpu import ksw
+from compseed.options import fill_scmat
 
 
 MAT = np.array(fill_scmat(1, 4))

@@ -5,9 +5,9 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from compseed_tpu.cpu import fm_oracle as fo
-from compseed_tpu.ops import fm as dfm
-from compseed_tpu.ops.device_index import to_device
+from compseed.cpu import fm_oracle as fo
+from compseed.ops import fm as dfm
+from compseed.ops.device_index import to_device
 
 
 @pytest.fixture(scope="module")
@@ -95,10 +95,10 @@ def test_densify_sa(dev):
     keep sa_batch oracle-exact on the densified index."""
     import os
     import tempfile
-    from compseed_tpu.index.build import build_index
-    from compseed_tpu.index.fmindex import FMIndex
-    from compseed_tpu.ops.device_index import densify_sa
-    from compseed_tpu.utils import NT4_TO_ASCII
+    from compseed.index.build import build_index
+    from compseed.index.fmindex import FMIndex
+    from compseed.ops.device_index import densify_sa
+    from compseed.utils import NT4_TO_ASCII
 
     seq, fm, dfi = dev
     assert fm.sa_intv == 32

@@ -5,16 +5,16 @@ import os
 import numpy as np
 import pytest
 
-from compseed_tpu.options import MemOptions
-from compseed_tpu.pipeline import seeding
-from compseed_tpu.pipeline.align import encode_read
-from compseed_tpu.ops.smem import BatchSeeder
+from compseed.options import MemOptions
+from compseed.pipeline import seeding
+from compseed.pipeline.align import encode_read
+from compseed.ops.smem import BatchSeeder
 
 from tests.conftest import FIXTURES
 
 
 def _fixture_queries(n):
-    from compseed_tpu.io.fastq import read_fastq_chunks
+    from compseed.io.fastq import read_fastq_chunks
     reads = []
     for chunk in read_fastq_chunks(os.path.join(FIXTURES, "reads.fq"),
                                    10_000_000):

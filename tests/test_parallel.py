@@ -12,14 +12,14 @@ def _align_forward_step(dfi, qbatch, match_score=1, window_pad=32):
     """Round-1 demo step (seeding -> SA -> ref fetch -> banded SW) used
     only to exercise data_parallel_step with a real multi-stage
     jittable; the production sharded path is parallel/sharded.py
-    (folded here from the retired compseed_tpu/pipeline/forward.py)."""
+    (folded here from the retired compseed/pipeline/forward.py)."""
     from functools import partial
     import jax
     import jax.numpy as jnp
-    from compseed_tpu.ops import fm as dfm
-    from compseed_tpu.ops import smem as dsmem
-    from compseed_tpu.ops.bsw import bsw_extend
-    from compseed_tpu.ops.ref import fetch_windows
+    from compseed.ops import fm as dfm
+    from compseed.ops import smem as dsmem
+    from compseed.ops.bsw import bsw_extend
+    from compseed.ops.ref import fetch_windows
 
     B, L = qbatch.shape
     i32 = jnp.int32
@@ -38,7 +38,7 @@ def _align_forward_step(dfi, qbatch, match_score=1, window_pad=32):
     W = L + 2 * window_pad
     wbeg = rbeg - beg.astype(rbeg.dtype) - window_pad
     windows = fetch_windows(dfi, wbeg, W)
-    from compseed_tpu.options import fill_scmat
+    from compseed.options import fill_scmat
     mat = jnp.asarray(np.array(fill_scmat(match_score, 4),
                                dtype=np.int32).reshape(5, 5))
     scores, qle, tle, gtle, gscore, max_off = bsw_extend(
@@ -54,8 +54,8 @@ def test_data_parallel_step_8dev(tiny_fm):
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 virtual devices")
     import jax.numpy as jnp
-    from compseed_tpu.ops.device_index import to_device
-    from compseed_tpu.parallel.mesh import data_parallel_step, make_mesh
+    from compseed.ops.device_index import to_device
+    from compseed.parallel.mesh import data_parallel_step, make_mesh
     from tests.test_ops_smem import _fixture_queries
 
     mesh = make_mesh(jax.devices()[:8])
@@ -77,10 +77,10 @@ def _run_production(fm, mesh, reads):
     """The full production path — sharded seeder, sharded banded-SW
     engine, native tail — over one chunk."""
     import jax
-    from compseed_tpu.native import NativeTail
-    from compseed_tpu.options import MemOptions
-    from compseed_tpu.parallel.sharded import ShardedBswRunner, ShardedSeeder
-    from compseed_tpu.pipeline.align import align_chunk
+    from compseed.native import NativeTail
+    from compseed.options import MemOptions
+    from compseed.parallel.sharded import ShardedBswRunner, ShardedSeeder
+    from compseed.pipeline.align import align_chunk
 
     opt = MemOptions()
     seeder = ShardedSeeder(opt, fm, mesh=mesh)
@@ -98,7 +98,7 @@ def test_production_sam_identical_across_mesh_shapes(tiny_fm):
     SAM for mesh shapes {1, 2, 4, 8} — the -K reproducibility guarantee
     (main.cpp:266,437) carried to the device mesh."""
     import jax
-    from compseed_tpu.io.fastq import read_fastq_chunks
+    from compseed.io.fastq import read_fastq_chunks
 
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 virtual devices")
@@ -107,7 +107,7 @@ def test_production_sam_identical_across_mesh_shapes(tiny_fm):
             os.path.join(FIXTURES, "reads.fq"), 10**9):
         reads.extend(chunk)
     reads = reads[:240]
-    from compseed_tpu.parallel.mesh import make_mesh
+    from compseed.parallel.mesh import make_mesh
 
     sams = {}
     for S in (1, 2, 4, 8):
@@ -115,10 +115,10 @@ def test_production_sam_identical_across_mesh_shapes(tiny_fm):
         sams[S] = _run_production(tiny_fm, mesh, reads)
     assert sams[1] == sams[2] == sams[4] == sams[8]
     # and the mesh result equals the single-device reference pipeline
-    from compseed_tpu.native import NativeTail
-    from compseed_tpu.options import MemOptions
-    from compseed_tpu.ops.engine import device_engine, device_seeder
-    from compseed_tpu.pipeline.align import align_chunk
+    from compseed.native import NativeTail
+    from compseed.options import MemOptions
+    from compseed.ops.engine import device_engine, device_seeder
+    from compseed.pipeline.align import align_chunk
 
     opt = MemOptions()
     seeder = device_seeder(opt, tiny_fm)
@@ -132,12 +132,12 @@ def test_production_sam_identical_across_mesh_shapes(tiny_fm):
 
 @pytest.mark.slow
 def test_sharded_meta_path_sam_identical(tiny_fm):
-    """The pod pair interface: ShardedBswRunner.run_meta routes each
-    pair to the shard owning its read and slices DP tiles from the
-    shard-local read matrix (Pallas kernel under shard_map, interpret
+    """The sharded pair interface: ShardedBswRunner.run_meta_dual routes
+    each pair to the shard owning its read and slices DP tiles from the
+    shard-local read matrix (the GPU kernel under shard_map, interpret
     mode on CPU).  SAM must be byte-identical to the run_flat path."""
     import jax
-    from compseed_tpu.io.fastq import read_fastq_chunks
+    from compseed.io.fastq import read_fastq_chunks
 
     if len(jax.devices()) < 4:
         pytest.skip("needs 4 virtual devices")
@@ -146,12 +146,12 @@ def test_sharded_meta_path_sam_identical(tiny_fm):
             os.path.join(FIXTURES, "reads.fq"), 10**9):
         reads.extend(chunk)
     reads = reads[:160]
-    from compseed_tpu.native import NativeTail
-    from compseed_tpu.options import MemOptions
-    from compseed_tpu.parallel.mesh import make_mesh
-    from compseed_tpu.parallel.sharded import (ShardedBswRunner,
+    from compseed.native import NativeTail
+    from compseed.options import MemOptions
+    from compseed.parallel.mesh import make_mesh
+    from compseed.parallel.sharded import (ShardedBswRunner,
                                                ShardedSeeder)
-    from compseed_tpu.pipeline.align import align_chunk
+    from compseed.pipeline.align import align_chunk
 
     mesh = make_mesh(jax.devices()[:4])
     sams = {}
@@ -159,8 +159,7 @@ def test_sharded_meta_path_sam_identical(tiny_fm):
         opt = MemOptions()
         seeder = ShardedSeeder(opt, tiny_fm, mesh=mesh)
         engine = ShardedBswRunner(opt, np.array(opt.mat), mesh=mesh,
-                                  dfi=seeder.dfi)
-        engine.interpret = meta      # enables supports_meta on CPU
+                                  dfi=seeder.dfi, meta=meta, kernel=True)
         tail = NativeTail(opt, tiny_fm)
         rs = [r.__class__(**r.__dict__) for r in reads]
         align_chunk(opt, tiny_fm, rs, 0, engine=engine, seeder=seeder,
@@ -173,11 +172,10 @@ def test_sharded_meta_path_sam_identical(tiny_fm):
 
 @pytest.mark.slow
 def test_sharded_meta_xla_twin_sam_identical(tiny_fm):
-    """The sharded XLA-twin fallback of _meta_step (taken on hardware
-    when Mosaic is broken): force_meta_xla pins the bsw_meta_xla branch
-    under shard_map; SAM must match the Pallas-interpret meta path."""
+    """The sharded meta path with the XLA program as its DP must give
+    the same SAM as with the GPU kernel (interpret mode)."""
     import jax
-    from compseed_tpu.io.fastq import read_fastq_chunks
+    from compseed.io.fastq import read_fastq_chunks
 
     if len(jax.devices()) < 4:
         pytest.skip("needs 4 virtual devices")
@@ -186,26 +184,24 @@ def test_sharded_meta_xla_twin_sam_identical(tiny_fm):
             os.path.join(FIXTURES, "reads.fq"), 10**9):
         reads.extend(chunk)
     reads = reads[:160]
-    from compseed_tpu.native import NativeTail
-    from compseed_tpu.options import MemOptions
-    from compseed_tpu.parallel.mesh import make_mesh
-    from compseed_tpu.parallel.sharded import (ShardedBswRunner,
+    from compseed.native import NativeTail
+    from compseed.options import MemOptions
+    from compseed.parallel.mesh import make_mesh
+    from compseed.parallel.sharded import (ShardedBswRunner,
                                                ShardedSeeder)
-    from compseed_tpu.pipeline.align import align_chunk
+    from compseed.pipeline.align import align_chunk
 
     mesh = make_mesh(jax.devices()[:4])
     sams = {}
-    for force_xla in (False, True):
+    for kernel in (True, False):
         opt = MemOptions()
         seeder = ShardedSeeder(opt, tiny_fm, mesh=mesh)
         engine = ShardedBswRunner(opt, np.array(opt.mat), mesh=mesh,
-                                  dfi=seeder.dfi)
-        engine.interpret = True      # enables supports_meta on CPU
-        engine.force_meta_xla = force_xla
+                                  dfi=seeder.dfi, meta=True, kernel=kernel)
         tail = NativeTail(opt, tiny_fm)
         rs = [r.__class__(**r.__dict__) for r in reads]
         align_chunk(opt, tiny_fm, rs, 0, engine=engine, seeder=seeder,
                     tail=tail)
         assert engine._meta_steps, "meta path was not exercised"
-        sams[force_xla] = "".join(r.sam for r in rs)
+        sams[kernel] = "".join(r.sam for r in rs)
     assert sams[True] == sams[False]

@@ -9,16 +9,16 @@ import os
 
 import pytest
 
-from compseed_tpu.options import MemOptions, MEM_F_PE
-from compseed_tpu.io.fastq import read_fastq_pair_chunks
-from compseed_tpu.pipeline.align import align_chunk
+from compseed.options import MemOptions, MEM_F_PE
+from compseed.io.fastq import read_fastq_pair_chunks
+from compseed.pipeline.align import align_chunk
 
 from tests.conftest import FIXTURES
 
 
 @pytest.mark.slow
 def test_pe_golden_parity(tiny_fm):
-    from compseed_tpu.native import NativeTail
+    from compseed.native import NativeTail
 
     opt = MemOptions()
     opt.flag |= MEM_F_PE
@@ -43,10 +43,10 @@ def test_smartpe_golden_parity(tiny_fm):
     """-p interleaved/mixed input: bseq_classify splits SE vs PE groups
     (bwalib/bwa.c:113-129, fastmap.c:107-127); byte-identical to
     ``bwamem -p`` on the mixed fixture."""
-    from compseed_tpu.native import NativeTail
-    from compseed_tpu.io.fastq import read_fastq_chunks
-    from compseed_tpu.options import MEM_F_SMARTPE
-    from compseed_tpu.pipeline.align import align_chunk_smart
+    from compseed.native import NativeTail
+    from compseed.io.fastq import read_fastq_chunks
+    from compseed.options import MEM_F_SMARTPE
+    from compseed.pipeline.align import align_chunk_smart
 
     opt = MemOptions()
     opt.flag |= MEM_F_PE | MEM_F_SMARTPE
@@ -70,8 +70,8 @@ def test_smartpe_golden_parity(tiny_fm):
 
 def test_bseq_classify():
     """Adjacent same-name reads pair; orphans stay single."""
-    from compseed_tpu.io.fastq import Read
-    from compseed_tpu.pipeline.align import bseq_classify
+    from compseed.io.fastq import Read
+    from compseed.pipeline.align import bseq_classify
 
     def mk(name):
         return Read(name=name, seq="A", qual=None, comment=None)
@@ -92,7 +92,7 @@ def test_bseq_classify():
 
 def test_pe_insert_override(tiny_fm):
     """-I style pes override path produces records for every read."""
-    from compseed_tpu.native import NativeTail
+    from compseed.native import NativeTail
 
     opt = MemOptions()
     opt.flag |= MEM_F_PE

@@ -8,10 +8,10 @@ import os
 
 import pytest
 
-from compseed_tpu.io.fastq import read_fastq_chunks, read_reordered_chunks
-from compseed_tpu.options import MemOptions
-from compseed_tpu.pipeline.align import align_chunk
-from compseed_tpu.io.sam import sam_header
+from compseed.io.fastq import read_fastq_chunks, read_reordered_chunks
+from compseed.options import MemOptions
+from compseed.pipeline.align import align_chunk
+from compseed.io.sam import sam_header
 
 from tests.conftest import FIXTURES
 
@@ -47,7 +47,7 @@ def test_sam_parity_subset(tiny_fm):
 def test_tail_thread_count_determinism(tiny_fm):
     """-t only changes the host tail's kt_for fan-out
     (cstl/kthread.c:51-63); SAM must be byte-identical for any count."""
-    from compseed_tpu.native import NativeTail, set_threads
+    from compseed.native import NativeTail, set_threads
 
     reads0 = _load_reads("reads.fq", read_fastq_chunks)[:200]
     sams = []
@@ -99,10 +99,10 @@ def test_chunk_size_determinism(tiny_fm):
     """-K reproducibility contract (main.cpp:183,266): SE results must
     not depend on how the input is chunked."""
     import numpy as np
-    from compseed_tpu.io.fastq import read_fastq_chunks
-    from compseed_tpu.native import NativeTail
-    from compseed_tpu.ops.engine import device_engine, device_seeder
-    from compseed_tpu.pipeline.align import align_chunk
+    from compseed.io.fastq import read_fastq_chunks
+    from compseed.native import NativeTail
+    from compseed.ops.engine import device_engine, device_seeder
+    from compseed.pipeline.align import align_chunk
     from tests.conftest import FIXTURES
     import os
 
@@ -134,10 +134,10 @@ def test_align_stream_depth_parity(tiny_fm, depth, monkeypatch):
     """The overlapped chunk pipeline (align_stream) must produce the
     same SAM at any pipeline depth (COMPSEED_PIPE_DEPTH): depth only
     changes device-queue scheduling, never results or on_done order."""
-    from compseed_tpu.native import NativeTail
-    from compseed_tpu.ops.engine import device_engine, device_seeder
-    from compseed_tpu.pipeline.align import align_chunk, align_stream
-    from compseed_tpu.pipeline.seeding import SeedingStats
+    from compseed.native import NativeTail
+    from compseed.ops.engine import device_engine, device_seeder
+    from compseed.pipeline.align import align_chunk, align_stream
+    from compseed.pipeline.seeding import SeedingStats
 
     monkeypatch.setenv("COMPSEED_PIPE_DEPTH", str(depth))
     opt = MemOptions()

@@ -1,8 +1,8 @@
-"""Reference-free reorder preprocessing (compseed_tpu.io.reorder)."""
+"""Reference-free reorder preprocessing (compseed.io.reorder)."""
 
 import numpy as np
 
-from compseed_tpu.io.reorder import _kmer_codes, reorder_indices, \
+from compseed.io.reorder import _kmer_codes, reorder_indices, \
     reorder_reads
 
 
@@ -77,7 +77,7 @@ def test_reorder_handles_ambiguous_and_short():
     order = reorder_indices(reads)
     assert sorted(order.tolist()) == list(range(64))
     # string wrapper
-    from compseed_tpu.utils import NT4_TO_ASCII
+    from compseed.utils import NT4_TO_ASCII
     seqs = [bytes(NT4_TO_ASCII[r]).decode() for r in reads]
     order2 = reorder_reads(seqs)
     assert sorted(order2) == list(range(64))

@@ -10,16 +10,16 @@ import os
 
 import numpy as np
 
-from compseed_tpu.options import MemOptions
-from compseed_tpu.pipeline import seeding
-from compseed_tpu.pipeline.align import encode_read
-from compseed_tpu.ops.seeder2 import DeviceSeeder
+from compseed.options import MemOptions
+from compseed.pipeline import seeding
+from compseed.pipeline.align import encode_read
+from compseed.ops.seeder2 import DeviceSeeder
 
 from tests.conftest import FIXTURES
 
 
 def _fixture_queries(n):
-    from compseed_tpu.io.fastq import read_fastq_chunks
+    from compseed.io.fastq import read_fastq_chunks
     reads = []
     for chunk in read_fastq_chunks(os.path.join(FIXTURES, "reads.fq"),
                                    10_000_000):
@@ -73,7 +73,7 @@ def test_seeder2_edge_cases(tiny_fm):
 
 def test_seeder2_run_flat_contract(tiny_fm):
     """run_flat output must agree with the legacy lockstep seeder."""
-    from compseed_tpu.ops.smem import BatchSeeder
+    from compseed.ops.smem import BatchSeeder
     opt = MemOptions()
     queries = _fixture_queries(32)
     v2 = DeviceSeeder(opt, tiny_fm)
@@ -89,7 +89,7 @@ def test_seeder2_dedup_matches_oracle(tiny_fm):
     """Cross-read walk dedup (the compressive SST reuse) must not change
     results — identical matches on a sorted (reordered-style) batch,
     with the query-vs-call counters showing actual merging."""
-    from compseed_tpu.pipeline.seeding import SeedingStats
+    from compseed.pipeline.seeding import SeedingStats
 
     opt = MemOptions()
     queries = sorted(_fixture_queries(64), key=lambda q: q.tobytes())
@@ -108,7 +108,7 @@ def test_seeder2_int64_index_path(tiny_fm):
     """Force the int64 device index (what hg19-scale genomes use) and
     require identical seeding results."""
     import numpy as np
-    from compseed_tpu.ops.device_index import to_device
+    from compseed.ops.device_index import to_device
 
     opt = MemOptions()
     queries = _fixture_queries(24)
@@ -138,7 +138,7 @@ def test_seeder2_per_read_fallback(tiny_fm):
     sd = DeviceSeeder(opt, tiny_fm)
     l2, s2, so2 = sd.run_flat(queries)
     assert not sd.last_overflow  # chunk-global caps did NOT trip
-    from compseed_tpu.pipeline.chain import l_rep_one
+    from compseed.pipeline.chain import l_rep_one
     for r, q in enumerate(queries):
         want = seeding.collect_matches(tiny_fm, opt, q)
         wrep = l_rep_one([(b, e, s) for (_, _, s, b, e) in want],
@@ -153,7 +153,7 @@ def test_seeder2_per_read_fallback(tiny_fm):
 def _pool_from_scan(dfi, qarr, rlens, GP):
     import jax.numpy as jnp
     import numpy as np
-    from compseed_tpu.ops import seedscan as ss
+    from compseed.ops import seedscan as ss
 
     scan1 = ss.make_scan(dfi, qarr.shape[1], ss.CAPL, advance=True)
     lep, cnt, sovf = scan1(jnp.asarray(qarr), jnp.asarray(rlens),
@@ -171,15 +171,15 @@ def test_forward_scan_dedup_exact(tiny_fm):
     duplicates, shared prefixes, overlapping coverage."""
     import jax.numpy as jnp
     import numpy as np
-    from compseed_tpu.ops import seedscan as ss
-    from compseed_tpu.ops.device_index import to_device
+    from compseed.ops import seedscan as ss
+    from compseed.ops.device_index import to_device
 
     dfi = to_device(tiny_fm)
     rng = np.random.default_rng(21)
     from tests.conftest import FIXTURES
     import os
-    from compseed_tpu.index.build import read_fasta
-    from compseed_tpu.utils import NT4_TABLE
+    from compseed.index.build import read_fasta
+    from compseed.utils import NT4_TABLE
     g = read_fasta(os.path.join(FIXTURES, "tiny.fa"))[0][2]
     gcodes = NT4_TABLE[np.frombuffer(g, np.uint8)]
 
@@ -250,9 +250,9 @@ def test_forward_scan_dedup_l_domain_key(tiny_fm):
     """
     import jax.numpy as jnp
     import numpy as np
-    from compseed_tpu.cpu import fm_oracle as fo
-    from compseed_tpu.ops import seedscan as ss
-    from compseed_tpu.utils import NT4_TABLE
+    from compseed.cpu import fm_oracle as fo
+    from compseed.ops import seedscan as ss
+    from compseed.utils import NT4_TABLE
     from tests.conftest import _index_from_codes
 
     def codes(s):
@@ -285,7 +285,7 @@ def test_forward_scan_dedup_l_domain_key(tiny_fm):
     for i, q in enumerate([read1, read2]):
         qarr[i, :len(q)] = q
         rlens[i] = len(q)
-    from compseed_tpu.ops.device_index import to_device
+    from compseed.ops.device_index import to_device
     dfi = to_device(fm)
     GP = 48 * R
     pool0 = _pool_from_scan(dfi, qarr, rlens, GP)
@@ -303,8 +303,8 @@ def test_forward_scan_dedup_overflow_flag(tiny_fm):
     (the caller falls back to the exact path)."""
     import jax.numpy as jnp
     import numpy as np
-    from compseed_tpu.ops import seedscan as ss
-    from compseed_tpu.ops.device_index import to_device
+    from compseed.ops import seedscan as ss
+    from compseed.ops.device_index import to_device
     from tests.test_seeder2 import _fixture_queries
 
     dfi = to_device(tiny_fm)
@@ -328,7 +328,7 @@ def test_forward_dedup_adaptive_disable(tiny_fm, monkeypatch):
     instead of overflowing every time.  (Staged engine only: the chain
     memo's caps are lossy, not overflowing.)"""
     import numpy as np
-    from compseed_tpu.ops import seedscan as ss
+    from compseed.ops import seedscan as ss
 
     monkeypatch.setenv("COMPSEED_FWD_MEMO", "0")
     opt = MemOptions()
@@ -344,7 +344,7 @@ def test_forward_dedup_adaptive_disable(tiny_fm, monkeypatch):
     l2, s2, so2 = sd.run_flat(queries)
     assert not sd.last_overflow      # non-fwd path, no overflow
     assert np.array_equal(l1, l2) and np.array_equal(s1, s2)
-    from compseed_tpu.pipeline.chain import l_rep_one
+    from compseed.pipeline.chain import l_rep_one
     for r, q in enumerate(queries):
         want = seeding.collect_matches(tiny_fm, opt, q)
         wrep = l_rep_one([(b, e, s) for (_, _, s, b, e) in want],
@@ -352,13 +352,13 @@ def test_forward_dedup_adaptive_disable(tiny_fm, monkeypatch):
         assert int(l2[r]) == wrep, f"read {r}"
 
 def test_chain_scan_r1_exact(tiny_fm):
-    """The cross-round extension-chain memo (ss.chain_scan, the TPU
+    """The cross-round extension-chain memo (ss.chain_scan, the device
     rendering of the forward SST trie) must emit the exact LEP pool of
     the lockstep scan on adversarial reads: Ns, short reads, exact
     duplicates, offset-shifted overlaps, mixed lengths."""
     import jax.numpy as jnp
-    from compseed_tpu.ops import seedscan as ss
-    from compseed_tpu.ops.device_index import to_device
+    from compseed.ops import seedscan as ss
+    from compseed.ops.device_index import to_device
 
     dfi = to_device(tiny_fm)
     rng = np.random.default_rng(11)
@@ -403,8 +403,8 @@ def test_chain_memo_cross_round_reuse(tiny_fm):
     oracle and the r3 pass must add almost no fresh chain walks for
     duplicate reads."""
     import jax.numpy as jnp
-    from compseed_tpu.ops import seedscan as ss
-    from compseed_tpu.ops.device_index import to_device
+    from compseed.ops import seedscan as ss
+    from compseed.ops.device_index import to_device
 
     dfi = to_device(tiny_fm)
     queries = _fixture_queries(16)
@@ -438,7 +438,7 @@ def test_chain_memo_full_seeder_differential(tiny_fm, monkeypatch):
     equal the scalar oracle for every read (sorted, reordered-style
     batch) and the stats counters must show reuse."""
     monkeypatch.setenv("COMPSEED_FWD_MEMO", "1")
-    from compseed_tpu.pipeline.seeding import SeedingStats
+    from compseed.pipeline.seeding import SeedingStats
 
     opt = MemOptions()
     queries = sorted(_fixture_queries(64), key=lambda q: q.tobytes())
@@ -460,8 +460,8 @@ def test_chain_memo_lossy_caps_stay_exact(tiny_fm):
     reuse — results must stay exact with no overflow flag even at
     absurdly small caps."""
     import jax.numpy as jnp
-    from compseed_tpu.ops import seedscan as ss
-    from compseed_tpu.ops.device_index import to_device
+    from compseed.ops import seedscan as ss
+    from compseed.ops.device_index import to_device
 
     dfi = to_device(tiny_fm)
     queries = _fixture_queries(32)
@@ -490,9 +490,9 @@ def test_windowed_bwd_dedup_captures_shifted_sharing(tiny_fm, monkeypatch):
     seeding results to the whole-walk keying and (b) actually share
     steps (bc1 well below bq1), which position-keyed dedup cannot."""
     import jax.numpy as jnp
-    from compseed_tpu.index.build import unpack_pac
-    from compseed_tpu.options import MemOptions
-    from compseed_tpu.ops.seeder2 import DeviceSeeder
+    from compseed.index.build import unpack_pac
+    from compseed.options import MemOptions
+    from compseed.ops.seeder2 import DeviceSeeder
 
     g = unpack_pac(tiny_fm.pac, tiny_fm.l_pac)
     rng = np.random.default_rng(11)
@@ -543,9 +543,9 @@ def test_bwd_chain_rounds_bit_exact(tiny_fm, monkeypatch):
     probe + staged walk, and whole-walk keying) on shifted-coverage
     input, with the same query count and real sharing (bc < bq)."""
     import jax.numpy as jnp
-    from compseed_tpu.index.build import unpack_pac
-    from compseed_tpu.options import MemOptions
-    from compseed_tpu.ops.seeder2 import DeviceSeeder
+    from compseed.index.build import unpack_pac
+    from compseed.options import MemOptions
+    from compseed.ops.seeder2 import DeviceSeeder
 
     g = unpack_pac(tiny_fm.pac, tiny_fm.l_pac)
     rng = np.random.default_rng(13)
@@ -621,7 +621,7 @@ def test_seeder2_densified_sa(tiny_fm):
     """The full device seeder over a densify_sa(intv 8) index (the
     --sa-intv CLI lever) must produce identical matches/seeds — SAL
     depth is the only thing that changes."""
-    from compseed_tpu.ops.device_index import densify_sa, to_device
+    from compseed.ops.device_index import densify_sa, to_device
 
     opt = MemOptions()
     queries = _fixture_queries(16)

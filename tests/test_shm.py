@@ -7,7 +7,7 @@ import os
 
 
 def test_shm_roundtrip(tiny_fm):
-    from compseed_tpu.index import shm
+    from compseed.index import shm
 
     name = shm.shm_stage(os.path.join(FIXTURES, "tiny"), "pytest_tiny")
     try:
@@ -21,7 +21,7 @@ def test_shm_roundtrip(tiny_fm):
         assert [a.name for a in fm.bns.anns] == \
             [a.name for a in tiny_fm.bns.anns]
         # queries through the attached copy are identical
-        from compseed_tpu.cpu import fm_oracle as fo
+        from compseed.cpu import fm_oracle as fo
         for k in (0, 1, 100, fm.seq_len - 1):
             assert np.array_equal(fo.occ4(fm, k), fo.occ4(tiny_fm, k))
     finally:
